@@ -128,7 +128,7 @@ class DecodeStats:
 
 
 class Decoder:
-    """TPU-pipeline H.264 decoder (Baseline/Main/High, configs 1-4).
+    """H.264 decoder (Baseline/Main/High, configs 1-4).
 
     entropy="cpp" uses the native host entropy library (the shipped
     component); "python" uses the pure-Python differential oracle parser.

@@ -5,7 +5,7 @@ empty — implemented from spec 8.2.1, 8.2.4, 8.2.5, Annex C bumping).
 
 Host-side control logic.  Pixel storage is owned by the caller: each stored
 picture carries an opaque `planes` payload (numpy planes for the oracle,
-device DPB slot handles for the TPU pipeline).
+device DPB slot handles for the device pipeline).
 """
 
 from __future__ import annotations

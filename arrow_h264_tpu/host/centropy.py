@@ -2,7 +2,7 @@
 
 Reference parity: the SHIPPED host entropy component per SURVEY.md §2
 ("the serial entropy layers are the native-code surface ... C++ on the
-TPU-VM host"); the pure-Python parser in mb/parse.py remains the
+host"); the pure-Python parser in mb/parse.py remains the
 differential-testing oracle.
 
 `CppPictureParse` mirrors PictureParse closely enough for the decode
@@ -282,7 +282,7 @@ class gil_meter:
     that scales across host threads; everything else (numpy orchestration,
     DPB bookkeeping) serializes on the GIL.  bench_host.py enables this
     to report a MEASURED gil_hold_pct instead of asserting "linear in
-    cores" (VERDICT r3 #3c)."""
+    cores"."""
     enabled = False
     released_s = 0.0
 

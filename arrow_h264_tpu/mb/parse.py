@@ -5,7 +5,7 @@ reference mount empty — implemented from the spec clauses).
 
 This is the host entropy layer: it turns slice RBSPs into per-MB records
 (the "MB tensor" source).  It never looks at pixels, so parsing is fully
-decoupled from reconstruction — the property the TPU pipeline relies on.
+decoupled from reconstruction — the property the device pipeline relies on.
 """
 
 from __future__ import annotations

@@ -43,7 +43,7 @@ Layout (per frame; the stream batch dimension B is added by stacking):
   slogwd      [MAX_SLICES,2] int32  per-slice (luma, chroma) log2 weight denom
 
 Reference parity: this replaces the JM-lineage per-MB struct soup
-(`macroblock.c`) with dense tensors (SURVEY.md §2 TPU re-layering).
+(`macroblock.c`) with dense tensors (SURVEY.md §2 re-layering).
 """
 
 from __future__ import annotations
@@ -344,7 +344,7 @@ def assign_slice_rows(pps, headers, slice_reflists) -> list[int]:
     (CONCEAL_SLICE is reserved).  <= MAX_SLICES-1 slices map 1:1; above
     that, slices sharing identical device-visible parameters share a row
     (slice-per-MB-row encoders emit dozens of identical slices — the old
-    hard reject failed legal streams, ADVICE r3).  disable_idc==2 slices
+    hard reject failed legal streams).  disable_idc==2 slices
     are kept unique while rows remain so the same-slice boundary test
     stays exact; if even the deduped key set overflows, idc==2 slices
     merge too (their shared boundaries then get filtered: a bounded,
@@ -381,8 +381,8 @@ def fill_weight_tables(abi: FrameABI, pps, headers, slice_reflists,
     parameter rows (assign_slice_rows), including abi["slice_id"].
 
     If even the deduped parameter sets exceed the rows (a low-latency
-    encoder emitting dozens of slices with DISTINCT pred-weight tables,
-    VERDICT r4 #6), the picture falls back to DENSE per-cell weights:
+    encoder emitting dozens of slices with DISTINCT pred-weight
+    tables), the picture falls back to DENSE per-cell weights:
     abi["wp"]/abi["logwd"] filled on host from the true per-slice tables
     (no row limit; models.pipeline.resolve_weights passes them through)
     and slice_id kept at the true per-slice ids (deblock only compares
@@ -453,8 +453,8 @@ def _fill_dense_weights(abi: FrameABI, pps, headers, slice_reflists,
                         cur_poc: int) -> None:
     """Row-overflow fallback: per-CELL weights from the true per-slice
     tables.  abi["wp"] [n,4,4,2,3,2] / abi["logwd"] [n,2] match what
-    resolve_weights produces from the compact rows, so every MC path
-    (Pallas combine + gather) consumes them unchanged; the frame ships
+    resolve_weights produces from the compact rows, so the gather MC
+    consumes them unchanged; the frame ships
     dense (wire bypass) — rare enough that the upload cost is fine."""
     S = len(headers)
     fullw = np.zeros((S, 33, 33, 3, 4), np.int16)

@@ -322,160 +322,3 @@ def deblock_planes(abi, y, cb, cr, mb_w: int, mb_h: int, cqp_off=(0, 0),
 
     (y, cb, cr), _ = jax.lax.scan(phase_body, (y, cb, cr), (mb_idx, active))
     return y[:H, :W], cb[:H // 2, :W // 2], cr[:H // 2, :W // 2]
-
-
-# ---------------------------------------------------------------------------
-# Vectorized edge-table precompute for the Pallas kernel (ops/pallas).
-# bS and thresholds depend only on coding data, so every edge of the frame
-# is computed in one parallel pass; the sequential wavefront then only
-# filters pixels.
-# ---------------------------------------------------------------------------
-
-def _lut52(table, idx):
-    """52-entry table lookup as a fused select chain (beats a TPU gather
-    by orders of magnitude on these small per-MB index arrays)."""
-    out = jnp.full(idx.shape, int(table[0]), jnp.int32)
-    for k in range(1, 52):
-        if int(table[k]) != int(table[k - 1]):
-            out = jnp.where(idx >= k, int(table[k]), out)
-    return out
-
-
-def _lut_tc0(tc0_table, bsi, ia):
-    """tc0[bsi, ia] (bsi in 0..2, ia in 0..51) via select chains."""
-    out = jnp.zeros(jnp.broadcast_shapes(bsi.shape, ia.shape), jnp.int32)
-    for k in range(52):
-        t0, t1, t2 = (int(tc0_table[r][k]) for r in range(3))
-        v = jnp.where(bsi == 0, t0, jnp.where(bsi == 1, t1, t2))
-        out = jnp.where(ia == k, v, out)
-    return out
-
-
-def deblock_tables(abi, mb_w: int, mb_h: int, cqp_off=(0, 0),
-                   field: bool = False):
-    """Per-edge bS / tc0 / alpha / beta tables for the whole frame.
-
-    Returns dict:
-      bs_v/bs_h [n,4,4] int32, tc_v/tc_h [n,4,4] int32,
-      a_v/a_h/b_v/b_h [n,4] int32,
-      bs_c [n,2,2,4], tc_c [n,2,2,4,2], a_c/b_c [n,2,2,2] int32.
-    """
-    n = mb_w * mb_h
-    kind = abi["kind"]
-    is_intra = (kind <= 3).reshape(mb_h, mb_w)
-    nz = (abi["nz"] > 0).reshape(mb_h, mb_w, 4, 4)
-    mv = abi["mv"].reshape(mb_h, mb_w, 4, 4, 2, 2)
-    ref = abi["refid"].reshape(mb_h, mb_w, 4, 4, 2)
-    qp = abi["qp"].reshape(mb_h, mb_w)
-    sid = abi["slice_id"].reshape(mb_h, mb_w)
-    dis = abi["disable_idc"].reshape(mb_h, mb_w)
-    a_off = abi["alpha_off"].reshape(mb_h, mb_w)
-    b_off = abi["beta_off"].reshape(mb_h, mb_w)
-    tr8 = (abi["tr8"] > 0).reshape(mb_h, mb_w)
-
-    def shift_left(a):  # value of MB (my, mx-1); col 0 garbage (masked)
-        return jnp.concatenate([a[:, :1], a[:, :-1]], axis=1)
-
-    def shift_up(a):
-        return jnp.concatenate([a[:1], a[:-1]], axis=0)
-
-    do_any = dis != 1
-    left_ok = do_any & \
-        (jnp.arange(mb_w)[None, :] > 0) & \
-        ~((dis == 2) & (shift_left(sid) != sid))
-    top_ok = do_any & \
-        (jnp.arange(mb_h)[:, None] > 0) & \
-        ~((dis == 2) & (shift_up(sid) != sid))
-
-    alpha_t, beta_t, tc0_t, cqp_t = _ALPHA, _BETA, _TC0, _CQP
-
-    def one_dir(horiz: bool):
-        if horiz:
-            sh, ok_edge0 = shift_up, top_ok
-            # q blocks for edge e, seg s: (e, s); p: (e-1, s) / top (3, s)
-            q_nz = lambda e: nz[:, :, e, :]
-            p_nz = lambda e: nz[:, :, e - 1, :] if e else sh(nz[:, :, 3, :])
-            q_ref = lambda e: ref[:, :, e, :, :]
-            p_ref = lambda e: ref[:, :, e - 1, :, :] if e else sh(ref[:, :, 3, :, :])
-            q_mv = lambda e: mv[:, :, e, :, :, :]
-            p_mv = lambda e: mv[:, :, e - 1, :, :, :] if e else sh(mv[:, :, 3, :, :, :])
-        else:
-            sh, ok_edge0 = shift_left, left_ok
-            q_nz = lambda e: nz[:, :, :, e]
-            p_nz = lambda e: nz[:, :, :, e - 1] if e else sh(nz[:, :, :, 3])
-            q_ref = lambda e: ref[:, :, :, e, :]
-            p_ref = lambda e: ref[:, :, :, e - 1, :] if e else sh(ref[:, :, :, 3, :])
-            q_mv = lambda e: mv[:, :, :, e, :, :]
-            p_mv = lambda e: mv[:, :, :, e - 1, :, :] if e else sh(mv[:, :, :, 3, :, :])
-        p_intra0 = sh(is_intra)
-        qp_p0 = sh(qp)
-        bs_list, tc_list, a_list, b_list = [], [], [], []
-        for e in range(4):
-            mb_edge = e == 0
-            p_i = p_intra0 if mb_edge else is_intra
-            bs = _bs_pair(p_i[..., None], is_intra[..., None], mb_edge,
-                          p_nz(e), q_nz(e), p_ref(e), q_ref(e),
-                          p_mv(e), q_mv(e),
-                          bs4=3 if (horiz and field) else 4)
-            if mb_edge:
-                mask = ok_edge0
-            else:
-                mask = do_any & (True if e == 2 else ~tr8)
-            bs = jnp.where(mask[..., None], bs, 0)
-            qp_p = qp_p0 if mb_edge else qp
-            qpav = (qp_p + qp + 1) >> 1
-            ia = jnp.clip(qpav + a_off, 0, 51)
-            ib = jnp.clip(qpav + b_off, 0, 51)
-            a = _lut52(alpha_t, ia)
-            b = _lut52(beta_t, ib)
-            tc0 = _lut_tc0(tc0_t, jnp.clip(bs - 1, 0, 2), ia[..., None])
-            bs_list.append(bs)
-            tc_list.append(tc0)
-            a_list.append(a)
-            b_list.append(b)
-        return (jnp.stack(bs_list, 2).reshape(n, 4, 4),
-                jnp.stack(tc_list, 2).reshape(n, 4, 4),
-                jnp.stack(a_list, 2).reshape(n, 4),
-                jnp.stack(b_list, 2).reshape(n, 4))
-
-    bs_v, tc_v, a_v, b_v = one_dir(False)
-    bs_h, tc_h, a_h, b_h = one_dir(True)
-
-    # chroma: edges map to luma edges 0 and 8 (indices 0 and 2)
-    bs_c = jnp.stack([jnp.stack([bs_v[:, 0], bs_v[:, 2]], 1),
-                      jnp.stack([bs_h[:, 0], bs_h[:, 2]], 1)], 1)  # [n,2,2,4]
-    qp_l = shift_left(qp)
-    qp_u = shift_up(qp)
-    tc_c_all, a_c_all, b_c_all = [], [], []
-    for d, qp_nb in ((0, qp_l), (1, qp_u)):
-        tcs, as_, bs_ = [], [], []
-        for e in range(2):
-            qpp = qp_nb if e == 0 else qp
-            tce, ae, be = [], [], []
-            for pl_ in range(2):
-                qpc_p = _lut52(cqp_t, jnp.clip(qpp + cqp_off[pl_], 0, 51))
-                qpc_q = _lut52(cqp_t, jnp.clip(qp + cqp_off[pl_], 0, 51))
-                qpav = (qpc_p + qpc_q + 1) >> 1
-                ia = jnp.clip(qpav + a_off, 0, 51)
-                ib = jnp.clip(qpav + b_off, 0, 51)
-                ae.append(_lut52(alpha_t, ia))
-                be.append(_lut52(beta_t, ib))
-                bs_here = bs_c[:, d, e].reshape(mb_h, mb_w, 4)
-                tce.append(_lut_tc0(tc0_t, jnp.clip(bs_here - 1, 0, 2),
-                                    ia[..., None]))
-            tcs.append(jnp.stack(tce, -1))       # [mbh,mbw,4,2]
-            as_.append(jnp.stack(ae, -1))        # [mbh,mbw,2]
-            bs_.append(jnp.stack(be, -1))
-        tc_c_all.append(jnp.stack(tcs, 2))       # [mbh,mbw,2,4,2]
-        a_c_all.append(jnp.stack(as_, 2))        # [mbh,mbw,2,2]
-        b_c_all.append(jnp.stack(bs_, 2))
-    tc_c = jnp.stack(tc_c_all, 2).reshape(n, 2, 2, 4, 2)
-    a_c = jnp.stack(a_c_all, 2).reshape(n, 2, 2, 2)
-    b_c = jnp.stack(b_c_all, 2).reshape(n, 2, 2, 2)
-
-    return {"bs_v": bs_v.astype(jnp.int32), "tc_v": tc_v.astype(jnp.int32),
-            "a_v": a_v.astype(jnp.int32), "b_v": b_v.astype(jnp.int32),
-            "bs_h": bs_h.astype(jnp.int32), "tc_h": tc_h.astype(jnp.int32),
-            "a_h": a_h.astype(jnp.int32), "b_h": b_h.astype(jnp.int32),
-            "bs_c": bs_c.astype(jnp.int32), "tc_c": tc_c.astype(jnp.int32),
-            "a_c": a_c.astype(jnp.int32), "b_c": b_c.astype(jnp.int32)}

@@ -1,8 +1,9 @@
 """Device inter prediction: quarter-pel MC over precomputed half-pel planes.
 
 Reference parity: JM-lineage `get_block.c` quarter-pel interpolation +
-`mc_prediction.c` weighted prediction (SURVEY.md §2), restructured for TPU:
-instead of per-block 6-tap windows (gather-heavy), each reference picture's
+`mc_prediction.c` weighted prediction (SURVEY.md §2), restructured for a
+batched accelerator: instead of per-block 6-tap windows, each reference
+picture's
 half-pel planes (b = horizontal, h = vertical, j = diagonal) are computed
 ONCE when the picture is stored into the device DPB — dense separable
 filtering that vectorizes perfectly — and per-block MC reduces to at most
@@ -23,6 +24,42 @@ import numpy as np
 
 PAD = 32            # luma padding; chroma uses PAD // 2
 PADC = PAD // 2
+
+# MC envelope of the host-side mode selection
+# (models.pipeline.select_inter_mode): distinct DPB slots per frame,
+# distinct (slot, dy, dx) candidates per 16-row band, integer-pel MV
+# bounds.  The device gather path itself takes any MV and any slot.
+CAP = 61
+MAX_SLOTS = 4
+DY_MIN, DY_MAX = -20, 20
+DX_MIN, DX_MAX = -30, 30
+
+
+# ---------------------------------------------------------------------------
+# packed DPB layout: u8 pixels four to a little-endian u32 word
+# ---------------------------------------------------------------------------
+
+def luma_lanes(W: int) -> int:
+    """u32 words per padded luma row."""
+    return -(-(W + 2 * PAD) // 4)
+
+
+def chroma_lanes(W: int) -> int:
+    """u32 words per padded chroma row (W is the luma width)."""
+    return -(-(W // 2 + 2 * PADC) // 4)
+
+
+def chroma_rows(H: int) -> int:
+    """Padded chroma plane rows (H is the luma height)."""
+    return H // 2 + 2 * PADC
+
+
+def pack_u8_plane(p, n_lanes: int):
+    """u8 [H, Wpx] -> packed u32 [H, n_lanes] (little-endian 4px/lane)."""
+    H, Wpx = p.shape
+    pad = n_lanes * 4 - Wpx
+    x = jnp.pad(p, ((0, 0), (0, pad))).reshape(H, n_lanes, 4)
+    return jax.lax.bitcast_convert_type(x, jnp.uint32)
 
 
 def _tap6_1d(v, axis):
@@ -111,25 +148,12 @@ def _luma_gather_core(fetch, Hp, Wp, slot, bx, by, mvx, mvy):
     return jnp.where(same[:, None, None], p1, avg)
 
 
-def luma_mc_gather(dpb_y4, slot, bx, by, mvx, mvy):
-    """Quarter-pel MC via DENSE plane gathers (test oracle path).
-
-    dpb_y4: [S, 4, Hp, Wp] uint8 — (G, b, h, j) planes per slot.
-    slot/bx/by [N]; mv in qpel.  Returns [N, 4, 4] int32."""
-    Hp, Wp = dpb_y4.shape[2], dpb_y4.shape[3]
-
-    def fetch(s, p, yy, xx):
-        return dpb_y4[s, p, yy, xx].astype(jnp.int32)
-
-    return _luma_gather_core(fetch, Hp, Wp, slot, bx, by, mvx, mvy)
-
-
 def luma_mc_gather_packed(dpb_y4p, Wpx, slot, bx, by, mvx, mvy):
     """Quarter-pel MC gathering DIRECTLY from the packed u32 DPB planes
     (dpb_y4p [S, 4, Hp, L], little-endian 4 px/lane — models.pipeline's
     device DPB layout).  Gathering the u32 word and extracting the byte
     avoids materializing a dense unpacked DPB as the gather operand
-    (~55 MB/slot-set per stream — the batch=32 HBM blowup).  Wpx: real
+    (~55 MB/slot-set per stream, multiplied by the batch).  Wpx: real
     pixel width (L*4 may exceed it; the lane-rounding columns are
     garbage, so clamp happens in PIXEL space)."""
     Hp = dpb_y4p.shape[2]
@@ -164,21 +188,10 @@ def _chroma_gather_core(fetch, Hp, Wp, slot, bx, by, mvx, mvy):
             (8 - xf) * yf * C + xf * yf * D + 32) >> 6
 
 
-def chroma_mc_blocks(dpb_c, slot, bx, by, mvx, mvy):
-    """Dense-plane chroma MC.  dpb_c [S, Hcp, Wcp] uint8 (padded PADC).
-    Returns [N, 2, 2] int32."""
-    Hp, Wp = dpb_c.shape[1], dpb_c.shape[2]
-
-    def fetch(s, yy, xx):
-        return dpb_c[s, yy, xx].astype(jnp.int32)
-
-    return _chroma_gather_core(fetch, Hp, Wp, slot, bx, by, mvx, mvy)
-
-
 def chroma_mc_blocks_packed(dpb_cp1, Hpx, Wpx, slot, bx, by, mvx, mvy):
     """Chroma MC from ONE packed plane [S, Hp, L] u32 (4 px/lane).
-    Hpx/Wpx: real padded extents (chroma_rows/lane rounding can exceed
-    them with garbage; clamp in pixel space)."""
+    Hpx/Wpx: real padded extents (lane rounding can exceed them with
+    garbage; clamp in pixel space)."""
     def fetch(s, yy, xx):
         w = dpb_cp1[s, yy, xx >> 2]
         sh = ((xx & 3) << 3).astype(jnp.uint32)
@@ -201,21 +214,11 @@ def weight_bi_dev(p0, p1, w0, w1, o0, o1, log_wd):
     return jnp.clip(v, 0, 255)
 
 
-def inter_predict_cells(abi, dpb_y4, dpb_cb, dpb_cr, blk, mb_w: int):
-    """Weighted quarter-pel MC for an arbitrary LIST of 4x4 cells over
-    DENSE planes (test oracle path; the pipeline uses the _packed
-    variant).  Returns (y [K,4,4], cb [K,2,2], cr [K,2,2]) i32."""
-    return _inter_cells_core(
-        abi, blk, mb_w,
-        functools.partial(luma_mc_gather, dpb_y4),
-        functools.partial(chroma_mc_blocks, dpb_cb),
-        functools.partial(chroma_mc_blocks, dpb_cr))
-
-
 def inter_predict_cells_packed(abi, dpb_y4p, dpb_cp, blk, mb_w: int,
                                mb_h: int):
-    """Packed-DPB variant: dpb_y4p [S,4,Hp,L] u32, dpb_cp [S,2,Hcp,Lc]
-    u32 (models.pipeline.dpb_alloc layout) — no dense unpack anywhere."""
+    """Weighted MC of the cells `blk` off the packed DPB: dpb_y4p
+    [S,4,Hp,L] u32, dpb_cp [S,2,Hcp,Lc] u32 (models.pipeline.dpb_alloc
+    layout) — no dense unpack anywhere."""
     Wy = mb_w * 16 + 2 * PAD
     Hc = mb_h * 8 + 2 * PADC
     Wc = mb_w * 8 + 2 * PADC
@@ -229,10 +232,9 @@ def inter_predict_cells_packed(abi, dpb_y4p, dpb_cp, blk, mb_w: int,
 def _inter_cells_core(abi, blk, mb_w: int, luma_g, chroma_gb, chroma_gr):
     """Weighted quarter-pel MC for an arbitrary LIST of 4x4 cells.
 
-    blk [K] i32: flat cell indices (mb * 16 + raster cell).  Shared core
-    of the full-frame gather path (blk = arange(n*16)) and the hybrid
-    per-cell patch pass that repairs out-of-envelope cells behind the
-    Pallas MC kernel.  Returns (y [K,4,4], cb [K,2,2], cr [K,2,2]) i32.
+    blk [K] i32: flat cell indices (mb * 16 + raster cell); the frame
+    paths pass arange(n*16).  Returns (y [K,4,4], cb [K,2,2],
+    cr [K,2,2]) i32.
     """
     n16 = abi["mv"].shape[0] * 16
     mv = abi["mv"].reshape(n16, 2, 2)[blk]          # [K, list, (x, y)]
@@ -292,19 +294,6 @@ def _inter_cells_core(abi, blk, mb_w: int, luma_g, chroma_gb, chroma_gr):
     return out_y, out_cb, out_cr
 
 
-def inter_predict(abi, dpb_y4, dpb_cb, dpb_cr, mb_w: int, mb_h: int):
-    """Prediction planes for all inter blocks (one batched kernel).
-
-    dpb_y4 [S, 4, Hp, Wp]: precomputed (G, b, h, j) planes per slot.
-    Returns (pred_y [H, W], pred_cb, pred_cr) int32; intra-MB regions are
-    garbage (masked by the caller).
-    """
-    n = mb_w * mb_h
-    out_y, out_cb, out_cr = inter_predict_cells(
-        abi, dpb_y4, dpb_cb, dpb_cr, jnp.arange(n * 16), mb_w)
-    return _cells_to_planes(out_y, out_cb, out_cr, mb_w, mb_h)
-
-
 def inter_predict_packed(abi, dpb_y4p, dpb_cp, mb_w: int, mb_h: int):
     """Full-frame gather MC straight off the packed device DPB."""
     n = mb_w * mb_h
@@ -323,57 +312,4 @@ def _cells_to_planes(out_y, out_cb, out_cr, mb_w: int, mb_h: int):
         .reshape(mb_h * 8, mb_w * 8)
     pred_cr = pcr_mb.reshape(mb_h, mb_w, 8, 8).transpose(0, 2, 1, 3) \
         .reshape(mb_h * 8, mb_w * 8)
-    return pred_y, pred_cb, pred_cr
-
-
-def patch_inter_pred(preds, abi, dpb_y4, dpb_cb, dpb_cr, patch,
-                     mb_w: int, mb_h: int):
-    """Repair out-of-envelope cells in the Pallas MC prediction planes.
-
-    The Pallas MC kernel bounds its slab window / candidate encoding
-    (mc_kernel DX/DY/CAP/MAX_SLOTS); instead of demoting the WHOLE frame
-    to the full gather path when any cell violates the envelope (the
-    round-2 cliff), the host compacts the violating cells into `patch`
-    [K] i32 (flat mb*16+cell, -1 padded), the kernel runs with those
-    cells masked out, and this pass recomputes exactly those cells with
-    the spec gather path and scatters them into the prediction planes.
-    Padding entries scatter out of bounds and are dropped.
-    """
-    valid = patch >= 0
-    blk = jnp.where(valid, patch, 0)
-    out = inter_predict_cells(abi, dpb_y4, dpb_cb, dpb_cr, blk, mb_w)
-    return _patch_scatter(preds, out, blk, valid, mb_w)
-
-
-def patch_inter_pred_packed(preds, abi, dpb_y4p, dpb_cp, patch,
-                            mb_w: int, mb_h: int):
-    """patch_inter_pred straight off the packed device DPB (no dense
-    unpack — the unpacked planes were a materialized gather operand,
-    ~55 MB per stream at 1080p, which OOMed the batch=32 e2e path)."""
-    valid = patch >= 0
-    blk = jnp.where(valid, patch, 0)
-    out = inter_predict_cells_packed(abi, dpb_y4p, dpb_cp, blk, mb_w, mb_h)
-    return _patch_scatter(preds, out, blk, valid, mb_w)
-
-
-def _patch_scatter(preds, out, blk, valid, mb_w: int):
-    pred_y, pred_cb, pred_cr = preds
-    out_y, out_cb, out_cr = out
-    mbi = blk // 16
-    cell = blk % 16
-    bx = (mbi % mb_w) * 16 + (cell % 4) * 4
-    by = jnp.where(valid, (mbi // mb_w) * 16 + (cell // 4) * 4,
-                   jnp.int32(-(1 << 20)))
-    cx = (mbi % mb_w) * 8 + (cell % 4) * 2
-    cy = jnp.where(valid, (mbi // mb_w) * 8 + (cell // 4) * 2,
-                   jnp.int32(-(1 << 20)))
-    r4 = jnp.arange(4)
-    r2 = jnp.arange(2)
-    yy = by[:, None, None] + r4[None, :, None]
-    xx = bx[:, None, None] + r4[None, None, :]
-    pred_y = pred_y.at[yy, xx].set(out_y, mode="drop")
-    yyc = cy[:, None, None] + r2[None, :, None]
-    xxc = cx[:, None, None] + r2[None, None, :]
-    pred_cb = pred_cb.at[yyc, xxc].set(out_cb, mode="drop")
-    pred_cr = pred_cr.at[yyc, xxc].set(out_cr, mode="drop")
     return pred_y, pred_cb, pred_cr

@@ -77,35 +77,3 @@ W8, S8, R8 = build_tables(8)
 
 # Intra16x16 / chroma vertical+horizontal are trivial broadcasts; plane and
 # DC are implemented directly in ops.intra.
-
-
-def pack_kernel_tables():
-    """Pack (W, R, S) into Pallas-friendly blocks.
-
-    K4 [9*8, 128]: per mode an [8, 128] block; W[mode, out(r*4+c), i] at
-    [r, 4*i + c] (i = 0..12), R at [r, 52 + c], S at [r, 56 + c].
-    K8 [9*8, 256]: W at [r, 8*i + c] (i = 0..24), R at [r, 200 + c],
-    S at [r, 208 + c].
-    """
-    k4 = np.zeros((9 * 8, 128), np.int32)
-    for m in range(9):
-        blk = k4[m * 8:m * 8 + 8]
-        for o in range(16):
-            r, c = o // 4, o % 4
-            for i in range(13):
-                blk[r, 4 * i + c] = W4[m, o, i]
-            blk[r, 52 + c] = R4[m, o]
-            blk[r, 56 + c] = S4[m, o]
-    k8 = np.zeros((9 * 8, 256), np.int32)
-    for m in range(9):
-        blk = k8[m * 8:m * 8 + 8]
-        for o in range(64):
-            r, c = o // 8, o % 8
-            for i in range(25):
-                blk[r, 8 * i + c] = W8[m, o, i]
-            blk[r, 200 + c] = R8[m, o]
-            blk[r, 208 + c] = S8[m, o]
-    return k4, k8
-
-
-K4_PACKED, K8_PACKED = pack_kernel_tables()

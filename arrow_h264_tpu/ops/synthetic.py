@@ -82,7 +82,7 @@ def synthetic_abi_p(mb_w: int, mb_h: int, seed: int = 0, qp: int = 26,
                     intra_frac: float = 0.05, n_slots: int = 2,
                     n_mv: int = 24, bi_frac: float = 0.0) -> FrameABI:
     """A P/B-realistic ABI: mostly inter MBs with a bounded MV palette
-    (respects the Pallas MC path's per-band candidate cap), sparse intra,
+    (inside select_inter_mode's per-band candidate cap), sparse intra,
     moderate residuals.  Models a typical 1080p P-frame workload."""
     base = synthetic_abi(mb_w, mb_h, seed=seed, qp=qp)
     rng = np.random.default_rng(seed + 1000)

@@ -56,7 +56,7 @@ def hadamard4_dev(c):
 def luma_dc_dequant_dev(c, qp, ls00_6):
     """Intra16x16 luma DC (spec 8.5.10). c [n,4,4], qp [n], ls00_6 [6] const."""
     f = hadamard4_dev(c)
-    # 6-way select instead of gather (gathers pessimize fused TPU graphs)
+    # 6-way select over the qp%6 classes
     m = qp % 6
     ls = jnp.broadcast_to(ls00_6[0], qp.shape)
     for k in range(1, 6):
@@ -147,9 +147,7 @@ def _pcm_luma_blocks(pcm):
 def _gather_ls(table6, qp):
     """table6 [6,k,k] const -> [n,k,k] selected by qp%6 ([n]).
 
-    Implemented as a 6-term select chain, NOT a gather: on this platform a
-    single small gather coexisting with a large fused graph degrades the
-    whole executable by ~25x (see memory: mosaic-kernel-rules)."""
+    Implemented as a 6-term select chain over the qp%6 classes."""
     t = jnp.asarray(table6)
     m = (qp % 6)[:, None, None]
     out = jnp.broadcast_to(t[0], (qp.shape[0],) + t.shape[1:])

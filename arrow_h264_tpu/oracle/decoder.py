@@ -3,7 +3,7 @@
 Reference parity: JM-lineage `ldecod.c` / `image.c` decode loop
 (SURVEY.md §3.2 call stack; reference mount empty — spec 8.2 order).
 
-This is the bring-up + unit-test oracle (SURVEY.md §7 step 1).  The TPU
+This is the bring-up + unit-test oracle (SURVEY.md §7 step 1).  The device
 pipeline shares the same host entropy layer (mb.parse) and must match this
 decoder bit-exactly.
 """

@@ -3,7 +3,7 @@
 Reference parity: JM-lineage `transform.c` / `block.c` / `quant.c`
 (SURVEY.md §2; reference mount empty — implemented from spec 8.5.9-8.5.13).
 
-This module is the bit-exact unit-test oracle for the JAX/Pallas kernels.
+This module is the bit-exact unit-test oracle for the JAX device path.
 All math is integer; inputs/outputs are numpy int32 arrays.
 """
 

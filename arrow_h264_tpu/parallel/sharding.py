@@ -1,22 +1,18 @@
-"""Multi-stream / multi-chip decode sharding (SURVEY.md §2 parallelism).
+"""Multi-stream / multi-device decode sharding (SURVEY.md §2 parallelism).
 
 The decode dataflow is embarrassingly parallel across streams: the stream
-batch shards across a 1-D `stream` mesh via shard_map; inside each shard
-the per-device streams run through the single-frame pipeline (a static
-python loop — the per-frame function contains Pallas kernels, which are
-compiled per device program, not vmapped).  No cross-chip collectives
-exist in the decode path — the only transport is the host->HBM MB-tensor
-upload.
+batch shards across a 1-D `stream` mesh via shard_map, and inside each
+shard the per-device streams run through the vmapped batch pipeline.  No
+collectives exist in the decode path — the only transport is the
+host->device MB-tensor upload.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 
 from ..models.pipeline import decode_frames_batch_fn
 
@@ -26,28 +22,12 @@ def make_stream_mesh(devices=None) -> Mesh:
     return Mesh(np.array(devices), ("stream",))
 
 
-def batched_decode_fn(mb_w: int, mb_h: int, ws4, ws8, cqp_off,
-                      per_dev: int, inter_mode: str = "none",
-                      bypass: bool = False, field: bool = False):
-    """Batched decode over stacked (abi, dpb_y4p, dpb_cp, slot_list).
-
-    per_dev: streams per device shard (static).  Returns a function over
-    batch-leading arrays of that size."""
-    def stacked(abi_b, dpb_y_b, dpb_c_b, slots_b):
-        return decode_frames_batch_fn(
-            abi_b, dpb_y_b, dpb_c_b, slots_b, mb_w=mb_w, mb_h=mb_h,
-            ws4=jnp.asarray(ws4), ws8=jnp.asarray(ws8), cqp_off=cqp_off,
-            n_streams=per_dev, inter_mode=inter_mode, bypass=bypass,
-            field=field)
-
-    return stacked
-
-
 def sharded_decode_fn(mesh: Mesh, mb_w: int, mb_h: int, ws4, ws8,
                       cqp_off=(0, 0), n_streams: int | None = None,
-                      inter_mode: str = "none", bypass: bool = False,
+                      inter: bool = False, bypass: bool = False,
                       field: bool = False):
-    """jit the batched decode with the stream batch sharded over the mesh.
+    """jit the batched decode (abi_b, dpb_y_b, dpb_c_b) -> (y, cb, cr)
+    with the stream batch sharded over the mesh.
 
     n_streams must be a multiple of the mesh size (default: one per
     device)."""
@@ -55,14 +35,20 @@ def sharded_decode_fn(mesh: Mesh, mb_w: int, mb_h: int, ws4, ws8,
     if n_streams is None:
         n_streams = n_dev
     assert n_streams % n_dev == 0, (n_streams, n_dev)
-    per_dev = n_streams // n_dev
-    fn = batched_decode_fn(mb_w, mb_h, ws4, ws8, cqp_off, per_dev,
-                           inter_mode, bypass=bypass, field=field)
+
+    def decode_batch(abi_b, dpb_y_b, dpb_c_b):
+        return decode_frames_batch_fn(
+            abi_b, dpb_y_b, dpb_c_b, mb_w=mb_w, mb_h=mb_h,
+            ws4=jnp.asarray(ws4), ws8=jnp.asarray(ws8), cqp_off=cqp_off,
+            inter=inter, bypass=bypass, field=field)
+
     spec = P("stream")
-    # check_vma=False: pallas_call out_shapes carry no varying-mesh-axes
-    # annotation; decode is DP-only so every output varies on "stream"
-    mapped = jax.shard_map(fn, mesh=mesh,
-                           in_specs=(spec, spec, spec, spec),
+    # check_vma=False: the intra and deblock wavefront scans start their
+    # carries from constants (zero planes), which the varying-axes check
+    # rejects against the per-stream outputs; every value here varies
+    # over "stream" anyway (decode is data-parallel only)
+    mapped = jax.shard_map(decode_batch, mesh=mesh,
+                           in_specs=(spec, spec, spec),
                            out_specs=spec, check_vma=False)
     return jax.jit(mapped)
 
@@ -76,15 +62,14 @@ def sharded_store_fn(mesh: Mesh, n_streams: int | None = None):
     if n_streams is None:
         n_streams = n_dev
     assert n_streams % n_dev == 0, (n_streams, n_dev)
-    per_dev = n_streams // n_dev
 
-    def stacked(dpb_y_b, dpb_c_b, slot_b, y_b, cb_b, cr_b):
+    def store_batch(dpb_y_b, dpb_c_b, slot_b, y_b, cb_b, cr_b):
         # store_ref_fn is pure XLA (halfpel + pack + slot write): vmap
         # instead of an unrolled per-stream loop (one traced body)
         return jax.vmap(store_ref_fn)(dpb_y_b, dpb_c_b, slot_b,
                                       y_b, cb_b, cr_b)
 
     spec = P("stream")
-    mapped = jax.shard_map(stacked, mesh=mesh, in_specs=(spec,) * 6,
-                           out_specs=(spec, spec), check_vma=False)
+    mapped = jax.shard_map(store_batch, mesh=mesh, in_specs=(spec,) * 6,
+                           out_specs=(spec, spec))
     return jax.jit(mapped, donate_argnums=(0, 1))

@@ -1,6 +1,6 @@
 """Structured decode trace (JSONL) — the JM `TRACE` analog (SURVEY.md §5).
 
-JM writes every syntax element to trace_dec.txt; the TPU-native analog
+JM writes every syntax element to trace_dec.txt; the analog here
 records one JSON line per slice header and per macroblock with the decoded
 syntax summary (type, qp, cbp, intra modes, MVs, refs, coeff counts).
 Two decoder runs — or this decoder vs a reference — can be diffed per MB

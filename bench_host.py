@@ -74,15 +74,17 @@ def main() -> None:
         projected8 = min(8 * fps, 1.0 / gil_held_per_frame)
         return fps, kbit, 100.0 * (dt - released) / dt, projected8
 
+    bench_dir = Path(__file__).resolve().parent / ".bench"
+    bench_dir.mkdir(exist_ok=True)
     # adversarial: noise=12 under qp26 High/CABAC (~4 Mbit/frame) — the
     # worst-case bin density; broadcast: noise=3 qp30 (~1 Mbit/frame),
     # the content class bench.py's end-to-end line decodes
     adv_fps, adv_kbit, adv_gil, adv_p8 = run(
-        "/tmp/bench_host_1080p.264",
+        str(bench_dir / "host_1080p.264"),
         lambda p: streams.encode(streams.make_content(w, h, 8, seed=7),
                                  w, h, p, streams.CONFIG_OPTS[4]))
     bro_fps, bro_kbit, bro_gil, bro_p8 = run(
-        "/tmp/bench_host_1080p_broadcast.264",
+        str(bench_dir / "host_1080p_broadcast.264"),
         lambda p: streams.encode(
             streams.make_content(w, h, 16, seed=100, noise=3), w, h, p,
             ["profile=high", "qp=30", "g=250", "bf=2", "refs=4",

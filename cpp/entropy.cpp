@@ -1327,10 +1327,10 @@ extern "C" void h264e_build_col(
 
 // ---------------------------------------------------------------------------
 // Per-frame MC-variant selection (models/pipeline.select_inter_mode).
-// The Pallas MC kernel requires MVs inside its slab window, <= max_slots
+// The host-side MC envelope: MVs inside the DX/DY window, <= max_slots
 // distinct DPB slots, and <= cap distinct (slot, mv_int) candidates per
-// 16-row band; violating cells are evicted into `patch` (repaired on
-// device by the gather pass).  The numpy version loops np.unique over
+// 16-row band; violating cells are evicted into `patch` (a wire
+// section; the device's gather MC reads every cell itself).  The numpy version loops np.unique over
 // every band (68 at 1080p) on the GIL; this runs on the parse thread.
 //
 // kind [n] i32, mv [n,4,4,2,2] i32, refslot [n,4,4,2] i32 (ABI layout).

@@ -143,8 +143,7 @@ def test_device_lossless_cavlc_dpcm(h264ref, tmp_path):
 def test_device_cif(h264ref, tmp_path, cfg):
     """Configs 2-4 at CIF (352x288) on the device pipeline: wider
     geometry (mb_w=22) than the QCIF tests — band layouts, knight-phase
-    schedules, and lane packing all differ with mb_w (VERDICT r4 #7:
-    wide-geometry device behavior was chip-tool-only)."""
+    schedules, and packed row widths all differ with mb_w."""
     w, h = 352, 288
     yuv = streams.make_content(w, h, 4, seed=60 + cfg)
     path = str(tmp_path / f"dcif{cfg}.264")

@@ -1,21 +1,15 @@
-"""Pallas-path conformance at non-QCIF widths (round-2 regression class).
+"""Device-path conformance at non-QCIF widths (a regression class: an
+earlier 720p corruption was a width-dependent bug QCIF could never
+catch).  The packed DPB rows hold luma_lanes(W) = (W + 64) / 4 u32 words,
+so each width below is a distinct row shape:
 
-The packed-plane Pallas kernels quantize widths into power-of-two lane
-tiles (mc_kernel._round128); every width class is a distinct code shape,
-and the round-2 720p corruption (commit 22f41c5) was exactly a width-
-dependent bug QCIF could never catch.  These tests force the Pallas
-kernels (interpret mode on CPU) at geometries covering three distinct
-luma lane counts:
-
-  176px  -> 128 lanes   (covered by test_device_pipeline at QCIF)
-  512px  -> 256 lanes
-  976px  -> 512 lanes
+  176px  ->  60 words   (covered by test_device_pipeline at QCIF)
+  512px  -> 144 words
+  976px  -> 260 words
 
 with P-frame MC + deblock + intra exercised against the libavcodec
 golden.
 """
-
-import os
 
 import numpy as np
 import pytest
@@ -23,8 +17,7 @@ import pytest
 from tools import streams
 
 
-def _decode_pallas(path: str, monkeypatch) -> np.ndarray:
-    monkeypatch.setenv("ARROW_H264_PALLAS", "1")
+def _decode(path: str) -> np.ndarray:
     from arrow_h264_tpu.api import Decoder
     dec = Decoder()
     frames = [np.frombuffer(f.planar(), np.uint8)
@@ -33,7 +26,7 @@ def _decode_pallas(path: str, monkeypatch) -> np.ndarray:
 
 
 @pytest.mark.parametrize("w,h", [(512, 80), (976, 64)])
-def test_pallas_width_classes_p(h264ref, tmp_path, monkeypatch, w, h):
+def test_pallas_width_classes_p(h264ref, tmp_path, w, h):
     yuv = streams.make_content(w, h, 3, seed=w)
     path = str(tmp_path / f"w{w}.264")
     opts = ["profile=baseline", "qp=28", "g=250", "bf=0", "refs=1",
@@ -41,15 +34,15 @@ def test_pallas_width_classes_p(h264ref, tmp_path, monkeypatch, w, h):
             f"x264-params=cabac=0:subme=6:{streams.X264_COMMON}"]
     streams.encode(yuv, w, h, path, opts)
     golden, gw, gh = streams.golden_decode(path)
-    ours = _decode_pallas(path, monkeypatch)
+    ours = _decode(path)
     assert ours.shape == golden.shape
     for f in range(ours.shape[0]):
         assert np.array_equal(ours[f], golden[f]), \
             f"{w}x{h} frame {f}: {int((ours[f] != golden[f]).sum())} diffs"
 
 
-def test_pallas_width_256_high_cabac(h264ref, tmp_path, monkeypatch):
-    """256-lane geometry through the High/CABAC path (8x8 + B-frames)."""
+def test_pallas_width_256_high_cabac(h264ref, tmp_path):
+    """512px geometry through the High/CABAC path (8x8 + B-frames)."""
     w, h = 512, 80
     yuv = streams.make_content(w, h, 4, seed=9)
     path = str(tmp_path / "w512high.264")
@@ -59,7 +52,7 @@ def test_pallas_width_256_high_cabac(h264ref, tmp_path, monkeypatch):
             + streams.X264_COMMON]
     streams.encode(yuv, w, h, path, opts)
     golden, gw, gh = streams.golden_decode(path)
-    ours = _decode_pallas(path, monkeypatch)
+    ours = _decode(path)
     assert ours.shape == golden.shape
     for f in range(ours.shape[0]):
         assert np.array_equal(ours[f], golden[f]), \

@@ -98,7 +98,7 @@ def test_field_frame_num_gap(entropy):
     pair, shifting the real fields' list indices — each P field's coded
     ref_idx 2 only lands on its same-parity I field if the gap pair was
     inserted.  Golden is constructed (libavcodec does not synthesize
-    gap refs in field mode).  VERDICT r4 #9."""
+    gap refs in field mode)."""
     data = FS.make_field_gap_stream()
     ours = _decode_ours(data, entropy)
     golden = FS.field_gap_golden()

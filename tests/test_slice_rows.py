@@ -4,7 +4,7 @@ The device ships per-slice parameters (weight tables, slogwd, deblock
 offsets) as MAX_SLICES fixed rows.  Slice-per-MB-row encoders emit far
 more than 15 slices per picture at HD; legal streams must not be
 rejected — slices with identical device-visible parameters share a row
-(ADVICE r3: the old hard reject failed such streams)."""
+(the old hard reject failed such streams)."""
 
 from types import SimpleNamespace
 
@@ -137,7 +137,7 @@ def test_many_distinct_weight_slices_conformance(h264ref, tmp_path):
     """End-to-end: 18 slices/picture with DISTINCT pred-weight tables
     (> 15 rows -> dense per-cell weight fallback) decodes bit-exact vs
     the libavcodec golden, on the shipped Decoder and on the
-    BatchDecoder per-lane overflow path (VERDICT r4 #6)."""
+    BatchDecoder (where the round ships dense weights for every lane)."""
     from tools.streams import golden_decode
     from tools.wp_streams import make_many_weight_slices_stream
     from arrow_h264_tpu.api import Decoder

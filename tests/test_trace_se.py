@@ -3,7 +3,7 @@
 --trace-se (the JM TRACE analog, SURVEY.md §5) must work on BOTH entropy
 engines and produce IDENTICAL traces on a conforming stream, so an
 entropy bug in either engine can be localized to the first diverging
-syntax element by diffing the two dumps (VERDICT r3 #8).
+syntax element by diffing the two dumps.
 
 The C++ records come from a -DH264E_TRACE build (cpp/entropy.cpp
 H264E_TR hooks); positions are logical consumed bits, which for the

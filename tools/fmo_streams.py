@@ -133,7 +133,7 @@ SCENARIOS = {
 
 
 # ---------------------------------------------------------------------------
-# FMO with REAL syntax (VERDICT r3 #7): CAVLC residual + P-slice content.
+# FMO with REAL syntax: CAVLC residual + P-slice content.
 #
 # libavcodec cannot decode FMO, so the oracle is indirect but still
 # independent: each FMO stream is authored together with a RASTER TWIN —

@@ -22,7 +22,7 @@ def ensure_h264ref() -> str:
 
     Compiles to a temp path and os.replace()s into place so an
     interrupted gcc never leaves a fresh-mtime partial binary that later
-    calls would treat as up to date (ADVICE r4)."""
+    calls would treat as up to date."""
     import os
     src = REPO / "tools" / "h264ref.c"
     if not H264REF.exists() or H264REF.stat().st_mtime < src.stat().st_mtime:

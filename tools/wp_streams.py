@@ -4,7 +4,7 @@ A low-latency encoder may emit one slice per MB row with DISTINCT
 pred-weight tables per slice (spec 7.3.3.2 pred_weight_table is per
 slice header).  At >15 truly distinct parameter sets the device's fixed
 weight-table rows overflow and the decoder falls back to dense per-cell
-weights (ops.abi._fill_dense_weights, VERDICT r4 #6).  x264 never emits
+weights (ops.abi._fill_dense_weights).  x264 never emits
 per-slice-distinct weights, so the overflow path is exercised with
 hand-authored Main-profile streams; libavcodec decodes weighted P
 slices, so tools.streams.golden_decode is a true independent oracle.
